@@ -2,27 +2,26 @@
 """Multi-process scaling-efficiency benchmark (BASELINE >=0.8 target).
 
 Weak-scaling harness for the distributed encode path: N processes, each
-owning one device (CPU here; on a pod, one process per host), assemble a
-global 1-D mesh via ``jax.distributed`` and run the sharded pallas-free
-encode pipeline (``parallel.batch._build``) over a batch of
-``--per-proc`` images each.  The pipeline's overflow check is a
-cross-process ``pmax``, so every timed step includes a real collective
--- the same program structure as a multi-host TPU job (SURVEY 2.4,
-BASELINE config 5); the reference has no distributed anything to
-compare against, so efficiency is measured against our own N=1.
+owning one virtual CPU device, assemble a global 1-D mesh via
+``jax.distributed`` and run the sharded encode pipeline
+(``parallel.batch._build``) over a batch of ``--per-proc`` images each.
+The pipeline's overflow check is a cross-process ``pmax``, so every
+timed step includes a real collective -- the same program structure as
+a multi-host job (SURVEY 2.4, BASELINE config 5); the reference has no
+distributed anything to compare against, so efficiency is measured
+against our own N=1.
 
 Efficiency(N) = MP/s(N) / (N * MP/s(1))   [weak scaling: per-process
 workload fixed, total grows with N].
 
-Writes ``reports/scaling.json``.  On this 2-core dev box, N>2 rows are
-oversubscribed (more processes than cores) and understate a pod's
-efficiency; the record carries ``cores`` so readers can judge, and the
-same harness runs unchanged on a pod (drop ``--cpu``, let TPU runtime
-autodetect).
+Prints the JSON record (``--out=PATH`` also writes it).  Rows with more
+processes than cores are oversubscribed and understate efficiency; the
+record carries ``cores`` so readers can judge.  These are CPU numbers:
+they check the multi-process structure, not a device's scaling.
 
 Usage:
     python scripts/scaling_bench.py [--procs 1,2] [--per-proc 4] \
-        [--pipelines xla,pallas]
+        [--pipelines xla,decode]
     python scripts/scaling_bench.py _worker <coord> <n> <pid> <outdir> \
         <per_proc> <size> <reps> <pipeline>          (internal)
 """
@@ -79,8 +78,7 @@ def _worker():
     if pipeline == "decode":
         # sharded DECODE (round-4 verdict #6): each process entropy-
         # decodes + inverse-transforms its shard of TICX streams via
-        # the shard_map body (pure XLA -- compiled on CPU and pod
-        # alike).  Workload: each process compresses its local images
+        # the shard_map body (pure XLA).  Workload: each process compresses its local images
         # once (host oracle), then times the device decode only.
         from tinyimgcodec_tpu import container
         from tinyimgcodec_tpu.ops.entropy_decode import prepare_batch
@@ -137,27 +135,6 @@ def _worker():
             imgs, ok, flg = fn(gw, *gargs)
             okl = np.asarray(ok.addressable_data(0))
             return not okl.all()
-    elif pipeline == "pallas":
-        # the flagship kernels under shard_map (interpret mode on CPU;
-        # on a pod the same program runs compiled)
-        from tinyimgcodec_tpu.parallel.batch import _build_pallas
-
-        nb = (size // 8) * (size // 8)
-        bt_eff = 1024
-        while (per * nb) % bt_eff or bt_eff > nb:
-            bt_eff //= 2
-        cap = max(-(-per * size * size * 4 // 32), 256)
-        fn = _build_pallas(
-            _MeshKey(mesh), 50, nb, per, cap, bt_eff,
-            jax.default_backend() == "cpu",
-        )
-
-        def run_once():
-            out = fn(images)
-            # status is pmax-reduced: reading it syncs all processes,
-            # so wall time includes the collective every step
-            status = int(np.asarray(out[-1].addressable_data(0))[0])
-            return bool(status & 2)
     else:
         fn = _build(_MeshKey(mesh), 50, "fast", None)
 
@@ -225,16 +202,15 @@ def _run_config(n: int, per: int, size: int, reps: int, outdir: str,
 
 
 def main():
-    # default --procs 1,2: this dev box has 2 cores, and rows with more
-    # processes than cores are oversubscription artifacts, not scaling
-    # evidence (VERDICT r2 #7).  Pass --procs explicitly on a pod.
+    # default --procs 1,2: rows with more processes than cores are
+    # oversubscription artifacts, not scaling evidence
     args = dict(a.split("=", 1) for a in sys.argv[1:] if "=" in a)
     procs = [int(x) for x in args.get("--procs", "1,2").split(",")]
     per = int(args.get("--per-proc", "4"))
     size = int(args.get("--size", "512"))
     reps = int(args.get("--reps", "5"))
     pipelines = args.get(
-        "--pipelines", "xla,pallas,decode"
+        "--pipelines", "xla,decode"
     ).split(",")
     cores = os.cpu_count() or 1
 
@@ -242,11 +218,7 @@ def main():
 
     by_pipeline = {}
     for pipeline in pipelines:
-        # pallas runs in interpret mode on CPU (~100x slower per
-        # element); shrink the per-step workload so a run stays minutes
-        psize = int(args.get("--size-pallas", "128")) \
-            if pipeline == "pallas" else size
-        pper = 2 if pipeline == "pallas" else per
+        psize, pper = size, per
         if pipeline == "decode":
             # the CPU-compiled worst-case chain is seconds/rep at 512^2
             psize = int(args.get("--size-decode", "256"))
@@ -279,17 +251,14 @@ def main():
             "N processes x 1 device each over jax.distributed; CPU "
             "stand-in for hosts. Only rows with procs <= cores are "
             "scaling evidence; oversubscribed rows (if requested) are "
-            "flagged. 'xla' = shard_map XLA pipeline; 'pallas' = the "
-            "flagship fused kernels under shard_map (interpret mode on "
-            "CPU; compiled on a pod); 'decode' = sharded TICX device entropy decode + transform (pure XLA, compiled everywhere). Same harness runs unchanged on a "
-            "TPU pod."
+            "flagged. 'xla' = shard_map XLA encode pipeline; 'decode' = "
+            "sharded TICX device entropy decode + transform."
         ),
         "pipelines": by_pipeline,
     }
-    out = os.path.join(REPO, "reports", "scaling.json")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    with open(out, "w") as f:
-        json.dump(record, f, indent=1)
+    if "--out" in args:
+        with open(args["--out"], "w") as f:
+            json.dump(record, f, indent=1)
     print(json.dumps(record))
 
 

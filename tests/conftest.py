@@ -1,8 +1,8 @@
 """Test config: force a virtual 8-device CPU mesh before jax imports.
 
-This is the TPU analog of the reference's "subprocess + pipe" cross-process
-testing trick (SURVEY 4): multi-chip sharding logic is exercised on N
-virtual CPU devices via --xla_force_host_platform_device_count.
+Multi-device sharding logic is exercised on N virtual CPU devices via
+--xla_force_host_platform_device_count.  Tests that need the GPU carry
+the ``gpu`` marker and run the card's work in a child process.
 """
 
 import os
@@ -27,15 +27,6 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import pytest
 
-# persistent XLA compile cache: the df32 graphs are large and recompile
-# slowly; cache across test sessions
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.expanduser("~/.cache/tinyimgcodec_tpu/xla-cache"),
-)
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_ENTRY_SIZE_BYTES", "0")
-
 REFERENCE_ROOT = "/root/reference"
 
 
@@ -50,13 +41,26 @@ needs_reference = pytest.mark.skipif(
 
 @pytest.fixture(scope="session")
 def lenna() -> np.ndarray:
-    """512x512 grayscale Lenna from the reference corpus, or synthetic."""
+    """512x512 grayscale Lenna from the reference corpus, or the in-repo
+    golden image when the reference is not mounted."""
     path = os.path.join(REFERENCE_ROOT, "data", "lenna.gif")
     if os.path.exists(path):
         from PIL import Image
 
         return np.asarray(Image.open(path).convert("L"))
-    return synthetic_image(512, 512, seed=7)
+    return golden_image()
+
+
+@pytest.fixture(scope="session")
+def golden() -> np.ndarray:
+    """The seeded in-repo golden image (corpus.golden_image)."""
+    return golden_image()
+
+
+def golden_image() -> np.ndarray:
+    from tinyimgcodec_tpu.corpus import golden_image as _golden
+
+    return _golden()
 
 
 def synthetic_image(h: int, w: int, seed: int = 0) -> np.ndarray:

@@ -1,8 +1,8 @@
 """Worker process for the multi-process (multi-host analog) test.
 
 Each process owns one CPU device; jax.distributed assembles the global
-2-device mesh — the same program structure as a multi-host TPU pod job
-(BASELINE config 5), with cross-process collectives standing in for ICI.
+2-device mesh — the same program structure as a multi-host job
+(BASELINE config 5), with cross-process collectives standing in for the interconnect.
 Each worker feeds its local image shard, runs the sharded encode (whose
 overflow check is a cross-process pmax), and writes its local results.
 

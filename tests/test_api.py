@@ -2,7 +2,7 @@
 
 VERDICT round-1 items 5 and 7: quality is validated at the boundary
 (the reference silently NaNs at q=100, SURVEY quirk 2.5-6), engine
-failures degrade loudly, and auto_generate_huffman_table runs on the
+failures raise, and auto_generate_huffman_table runs on the
 device path (the reference's one broken feature, codec.py:146-148).
 """
 
@@ -43,9 +43,9 @@ def test_config_object_round_trip(small_image):
 
 
 def test_engine_failure_warns_and_jax_reraises(small_image, monkeypatch):
+    """An engine that fails to build raises under every JAX backend
+    choice: nothing degrades into the host path unnoticed."""
     monkeypatch.setattr(api, "_ENGINES", {})
-    monkeypatch.setattr(api, "_ENGINE_FAILED", False)
-    monkeypatch.setattr(api, "_ENGINE_ERROR", None)
 
     import tinyimgcodec_tpu.engine as engine_mod
 
@@ -56,12 +56,29 @@ def test_engine_failure_warns_and_jax_reraises(small_image, monkeypatch):
             raise boom
 
     monkeypatch.setattr(engine_mod, "Engine", _Broken)
-    with pytest.warns(RuntimeWarning, match="host path"):
-        data = api.compress(small_image, quality=50, backend="auto")
+    for backend in ("auto", "jax"):
+        with pytest.raises(ImportError) as ei:
+            api.compress(small_image, quality=50, backend=backend)
+        assert ei.value is boom
+    # the host path never builds an engine
+    data = api.compress(small_image, quality=50, backend="host")
     assert data == container.compress(small_image, 50, block_index=True)
-    with pytest.raises(RuntimeError) as ei:
+
+
+def test_missing_jax_falls_back_to_host(small_image, monkeypatch):
+    """Only a missing ``jax`` install sends backend="auto" to the host."""
+    import importlib.util
+
+    monkeypatch.setattr(api, "_ENGINES", {})
+    real = importlib.util.find_spec
+    monkeypatch.setattr(
+        importlib.util, "find_spec",
+        lambda name, *a: None if name == "jax" else real(name, *a),
+    )
+    data = api.compress(small_image, quality=50, backend="auto")
+    assert data == container.compress(small_image, 50, block_index=True)
+    with pytest.raises(RuntimeError, match="jax is not installed"):
         api.compress(small_image, quality=50, backend="jax")
-    assert ei.value.__cause__ is boom
 
 
 @pytest.mark.parametrize("quality", [10, 50, 90])

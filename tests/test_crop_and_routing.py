@@ -1,11 +1,12 @@
-"""Crop-contract + public-API routing regressions (VERDICT r2 #1/#2).
+"""Crop-contract + public-API routing regressions.
 
 The reference records TRUE image dims in the header and crops on decode
 (reference codec.py:69, utils.py:56-61).  Every public entry point --
-including the flagship pallas batch/stream paths -- must honor that
-contract, and the one-call ``compress()`` API must route through the
-same fused kernels as the batch path.
+batch, stream and single-image -- must honor that contract, and every
+encode runs the one XLA pipeline: there is no second (kernel) route.
 """
+
+import inspect
 
 import numpy as np
 import pytest
@@ -13,17 +14,14 @@ import pytest
 from tests.conftest import synthetic_image
 from tinyimgcodec_tpu import api, container
 from tinyimgcodec_tpu.engine import Engine
-from tinyimgcodec_tpu.pallas_pipeline import compress_batch_pallas
 
 
 @pytest.mark.parametrize("precision", ["fast", "exact"])
-def test_pallas_batch_odd_shape_records_true_dims(precision):
+def test_batch_odd_shape_records_true_dims(precision):
     imgs = np.stack(
         [synthetic_image(60, 52, seed=s) for s in (11, 12)]
     )
-    out = compress_batch_pallas(
-        imgs, quality=50, interpret=True, precision=precision
-    )
+    out = api.compress_batch(imgs, quality=50, precision=precision)
     for data, img in zip(out, imgs):
         h, w, q, _ = container.parse_header(data)
         assert (h, w) == (60, 52)
@@ -33,16 +31,14 @@ def test_pallas_batch_odd_shape_records_true_dims(precision):
     if precision == "exact":
         # byte-identical to the host/golden container path per image
         for data, img in zip(out, imgs):
-            assert data == container.compress(img, 50)
+            assert data == container.compress(img, 50, block_index=True)
 
 
 def test_compress_stream_odd_shape_records_true_dims():
     from tinyimgcodec_tpu.parallel.stream import compress_stream
 
     imgs = [synthetic_image(60, 52, seed=s) for s in range(3)]
-    out = list(
-        compress_stream(iter(imgs), quality=50, chunk=2, interpret=True)
-    )
+    out = list(compress_stream(iter(imgs), quality=50, chunk=2))
     assert len(out) == 3
     for data in out:
         h, w, _, _ = container.parse_header(data)
@@ -55,45 +51,57 @@ def test_compress_stream_exact_matches_container():
 
     imgs = [synthetic_image(60, 52, seed=s) for s in range(2)]
     out = list(
-        compress_stream(
-            iter(imgs), quality=50, chunk=2, interpret=True,
-            precision="exact",
-        )
+        compress_stream(iter(imgs), quality=50, chunk=2, precision="exact")
     )
     for data, img in zip(out, imgs):
-        # stream output now carries the TICX trailer by default
+        # stream output carries the TICX trailer by default
         assert data == container.compress(img, 50, block_index=True)
 
 
-def _pallas_engine(precision):
-    return Engine(precision, use_pallas=True, pallas_interpret=True)
-
-
-@pytest.mark.parametrize("shape", [(64, 80), (60, 52)])
-def test_engine_pallas_routing_exact_bytes(shape):
+@pytest.mark.parametrize("shape", [(64, 80), (60, 52), (72, 72)])
+def test_engine_exact_bytes(shape):
+    # 72x72 -> 81 blocks: any block count runs the same XLA program
     img = synthetic_image(*shape, seed=21)
-    eng = _pallas_engine("exact")
-    assert eng._pallas_compatible(img)
-    assert eng.compress(img, 50) == container.compress(
+    assert Engine("exact").compress(img, 50) == container.compress(
         img, 50, block_index=True
     )
 
 
-def test_engine_pallas_fallback_untileable_shape():
-    # 72x72 -> 81 blocks, not a multiple of 8: must fall back to the
-    # XLA path and still produce reference-identical bytes
-    img = synthetic_image(72, 72, seed=22)
-    eng = _pallas_engine("exact")
-    assert not eng._pallas_compatible(img)
-    assert eng.compress(img, 50) == container.compress(
-        img, 50, block_index=True
-    )
+def test_engine_has_no_kernel_route():
+    """One encode path: the Engine takes no routing options, and the
+    removed kernel pipeline cannot be imported."""
+    params = list(inspect.signature(Engine).parameters)
+    assert params == ["precision", "device_entropy"]
+    eng = Engine("exact")
+    assert not any("pallas" in name for name in dir(eng))
+    with pytest.raises(ImportError):
+        import tinyimgcodec_tpu.pallas_pipeline  # noqa: F401
+
+
+@pytest.mark.parametrize("platform,expected", [("cpu", False), ("gpu", True)])
+def test_engine_decode_default_by_platform(platform, expected, monkeypatch):
+    """The entropy-decode route follows the default JAX platform: the
+    host C LUT on the CPU, the device chain on the GPU."""
+    import jax
+
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    assert Engine("exact")._device_entropy is expected
+
+
+@pytest.mark.parametrize("forced", [True, False])
+def test_engine_decode_route_override(forced):
+    eng = Engine("exact", device_entropy=forced)
+    assert eng._device_entropy is forced
+    img = synthetic_image(64, 64, seed=25)
+    data = container.compress(img, 50, block_index=True)
+    assert np.array_equal(eng.decompress(data), container.decompress(data))
+    assert eng.host_fallbacks == 0
 
 
 @pytest.mark.parametrize("precision", ["fast", "exact"])
-def test_engine_pallas_block_index(precision):
+def test_engine_block_index(precision):
     img = synthetic_image(64, 80, seed=23)
-    eng = _pallas_engine(precision)
+    eng = Engine(precision)
     data = eng.compress(img, 50, block_index=True)
     plain = eng.compress(img, 50, block_index=False)
     nb = (64 // 8) * (80 // 8)
@@ -107,14 +115,11 @@ def test_engine_pallas_block_index(precision):
         assert plain == container.compress(img, 50)
 
 
-def test_pallas_batch_exact_block_index_offsets():
-    # exact-precision pallas path now emits the TICX trailer too
-    # (VERDICT r2 #4); offsets must equal the host container's
+def test_batch_exact_block_index_offsets():
+    # the batch path emits the TICX trailer; offsets must equal the
+    # host container's
     img = synthetic_image(64, 64, seed=24)
-    out = compress_batch_pallas(
-        img[None], quality=50, interpret=True, precision="exact",
-        block_index=True,
-    )[0]
+    out = api.compress_batch(img[None], quality=50, precision="exact")[0]
     ref = container.compress(img, 50, block_index=True)
     assert out == ref
 

@@ -38,9 +38,7 @@ def _auto_stream(img, quality, **kw):
 
 
 def _device_engine():
-    eng = Engine("exact", use_pallas=False)
-    eng._device_entropy = True
-    return eng
+    return Engine("exact", device_entropy=True)
 
 
 def test_auto_table_trailer_parses_and_host_roundtrips():

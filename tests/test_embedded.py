@@ -1,6 +1,6 @@
 """Embedded fixed-point encoder tests (scaled_dct stream cross-impl).
 
-The TPU-era analog of the reference's cross-implementation conformance
+The analog of the reference's cross-implementation conformance
 trick (tests/cbenchmark.py: C encoder subprocess -> Python decoder): our
 fixed-point C encoder's streams must decode correctly through our decoder
 AND through the reference's Python decoder.
@@ -37,6 +37,7 @@ def test_embedded_roundtrip_psnr(qfactor):
     assert metrics.psnr(img, out) > EXPECTED_MIN_PSNR[qfactor]
 
 
+@needs_reference
 def test_embedded_lenna_psnr(lenna):
     data = native.embedded_encode(lenna, 2)
     out = container.decompress(data)
@@ -44,6 +45,7 @@ def test_embedded_lenna_psnr(lenna):
     assert metrics.psnr(lenna, out) > 35.5
 
 
+@needs_reference
 def test_embedded_compression_ratio(lenna):
     # reference C encoder CRs on Lenna: 3.26 / 5.13 / 8.10 / 12.99
     for qf, min_cr in [(0, 2.5), (1, 4.0), (2, 6.5), (3, 10.0)]:
@@ -57,6 +59,7 @@ _REF_C_CR = {0: 3.26, 1: 5.13, 2: 8.10, 3: 12.99}
 _REF_C_PSNR = {0: 40.45, 1: 38.33, 2: 36.45, 3: 34.60}
 
 
+@needs_reference
 @pytest.mark.parametrize("qfactor", [0, 1, 2, 3])
 def test_embedded_rd_parity_vs_reference_published(lenna, qfactor):
     """Quantified rate/distortion parity vs the reference C binary.
@@ -79,6 +82,36 @@ def test_embedded_rd_parity_vs_reference_published(lenna, qfactor):
     else:
         assert 0.75 < cr_ratio < 1.05   # the rounding trade's rate cost
         assert -0.2 < psnr_delta < 1.6  # repaid in fidelity, never worse
+
+
+# The same measurements on the in-repo golden image (corpus.golden_image),
+# taken with this encoder and the host decoder.
+_GOLDEN_CR = {0: 2.894, 1: 4.194, 2: 6.262, 3: 9.774}
+_GOLDEN_PSNR = {0: 36.340, 1: 34.495, 2: 33.354, 3: 32.393}
+
+
+def test_embedded_golden_psnr(golden):
+    data = native.embedded_encode(golden, 2)
+    out = container.decompress(data)
+    assert metrics.psnr(golden, out) > 33.3
+
+
+def test_embedded_golden_compression_ratio(golden):
+    for qf, min_cr in [(0, 2.85), (1, 4.15), (2, 6.2), (3, 9.7)]:
+        data = native.embedded_encode(golden, qf)
+        assert metrics.compression_ratio(golden, data) > min_cr
+
+
+@pytest.mark.parametrize("qfactor", [0, 1, 2, 3])
+def test_embedded_rd_golden(golden, qfactor):
+    """Rate/distortion of each qfactor on the golden image, pinned to
+    the measured values: the encoder is deterministic, so any drift is
+    a change of its quantizer or entropy coder."""
+    data = native.embedded_encode(golden, qfactor)
+    cr = metrics.compression_ratio(golden, data)
+    psnr = metrics.psnr(golden, container.decompress(data))
+    assert abs(cr - _GOLDEN_CR[qfactor]) < 1e-3
+    assert abs(psnr - _GOLDEN_PSNR[qfactor]) < 1e-3
 
 
 def test_embedded_cli_pipe(lenna):

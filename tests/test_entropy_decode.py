@@ -91,7 +91,7 @@ def test_device_entropy_parity_small_strides():
 
     img = synthetic_image(64, 64, seed=4)
     data = container.compress(img, quality=50)
-    eng = Engine("exact", use_pallas=False)
+    eng = Engine("exact")
     words, bits = eng.encode_to_words(img, 50)
     offsets = np.cumsum(bits, dtype=np.int64) - bits
     for stride in (8, 16, 32):
@@ -138,15 +138,12 @@ def test_engine_device_decode_end_to_end(monkeypatch):
         container.compress(im, quality=50, block_index=True)
         for im in imgs
     ]
-    eng = Engine("exact", use_pallas=False)
-    eng._device_entropy = True
+    eng = Engine("exact", device_entropy=True)
     out_dev = eng.decompress_batch(streams)
-    eng._device_entropy = False
-    out_host = eng.decompress_batch(streams)
+    out_host = Engine("exact", device_entropy=False).decompress_batch(
+        streams)
     assert np.array_equal(out_dev, out_host)
     # single-stream entry point
-    one_dev = None
-    eng._device_entropy = True
     one_dev = eng.decompress(streams[0])
     assert np.array_equal(one_dev, out_host[0])
     # non-indexed streams silently fall back to the host path
@@ -165,8 +162,7 @@ def test_engine_device_decode_corrupt_falls_back():
     mut = bytearray(good)
     mut[HEADER_BYTES + 40] ^= 0xFF
     mut = bytes(mut)
-    eng = Engine("exact", use_pallas=False)
-    eng._device_entropy = True
+    eng = Engine("exact", device_entropy=True)
     dev = eng.decompress_batch([mut, good])
     host = np.stack(
         [container.decompress(mut), container.decompress(good)]
@@ -194,11 +190,8 @@ def test_engine_subset_rerun_on_dense_chunks():
     stride = prep["stride"]
     _, ok1, exh1 = _decode_prep(prep, max_symbols=stride * 12 + 2)
     assert exh1.any(), "noise image should exhaust the 12-symbol budget"
-    eng = Engine("exact", use_pallas=False)
-    eng._device_entropy = True
-    dev = eng.decompress_batch(streams)
-    eng._device_entropy = False
-    host = eng.decompress_batch(streams)
+    dev = Engine("exact", device_entropy=True).decompress_batch(streams)
+    host = Engine("exact", device_entropy=False).decompress_batch(streams)
     assert np.array_equal(dev, host)
 
 
@@ -208,8 +201,7 @@ def test_device_entropy_odd_true_dims_crop():
 
     img = synthetic_image(60, 52, seed=31)
     s = container.compress(img, quality=50, block_index=True)
-    eng = Engine("exact", use_pallas=False)
-    eng._device_entropy = True
+    eng = Engine("exact", device_entropy=True)
     out = eng.decompress_batch([s])
     assert out.shape == (1, 60, 52)
     assert np.array_equal(out[0], container.decompress(s))
@@ -343,11 +335,8 @@ def test_engine_continuation_worst_case_escalation():
     # confirm the content genuinely exceeds TWO budget rounds
     _, _, ex1 = _decode_prep(prep, max_symbols=stride * 32 + 4)
     assert ex1.any(), "q=95 noise should exceed 32 rows/block"
-    eng = Engine("exact", use_pallas=False)
-    eng._device_entropy = True
-    dev = eng.decompress_batch(streams)
-    eng._device_entropy = False
-    host = eng.decompress_batch(streams)
+    dev = Engine("exact", device_entropy=True).decompress_batch(streams)
+    host = Engine("exact", device_entropy=False).decompress_batch(streams)
     assert np.array_equal(dev, host)
 
 
@@ -363,8 +352,7 @@ def test_decompress_batch_mixed_shapes_degrades_to_groups():
         synthetic_image(64, 64, seed=4),
     ]
     streams = [container.compress(im, quality=50) for im in imgs]
-    eng = Engine("exact", use_pallas=False)
-    eng._device_entropy = False
+    eng = Engine("exact", device_entropy=False)
     out = eng.decompress_batch(streams)
     assert isinstance(out, list) and len(out) == 4
     for s, dec in zip(streams, out):

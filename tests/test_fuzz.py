@@ -115,8 +115,7 @@ def test_device_decode_path_fuzz_matches_host_oracle():
     whole image host-decodes, so outputs agree bit-for-bit."""
     from tinyimgcodec_tpu.engine import Engine
 
-    eng = Engine("exact", use_pallas=False)
-    eng._device_entropy = True
+    eng = Engine("exact", device_entropy=True)
     rng = np.random.RandomState(13)
     base = bytearray(
         _valid_stream(seed=21, shape=(64, 64), block_index=True,

@@ -1,23 +1,24 @@
-"""tinyimgcodec_tpu: a TPU-native grayscale JPEG-style codec framework.
+"""tinyimgcodec_tpu: a device-parallel grayscale JPEG-style codec framework.
 
-A from-scratch JAX/XLA/Pallas re-architecture of the capabilities of
+A from-scratch JAX/XLA re-architecture of the capabilities of
 clysto/tinyimgcodec: 8x8 block transform coding (DCT -> quantize -> zig-zag
--> DC DPCM) with JPEG Annex K Huffman entropy coding, designed TPU-first:
+-> DC DPCM) with JPEG Annex K Huffman entropy coding, designed for an
+accelerator:
 
-- the transform stage runs as batched 8x8 matmuls / fused Pallas kernels
-  over HBM-resident block tensors;
+- the transform stage runs as batched 8x8 matmuls over device-resident
+  block tensors;
 - entropy coding (RLE, code/length gathers, bit packing) is vectorized on
   device via parallel prefix sums instead of per-block host loops;
-- multi-chip scale-out shards images and block-tiles over a
+- multi-device scale-out shards images and block-tiles over a
   ``jax.sharding.Mesh`` and stitches per-shard bitstream segments with
-  ICI collectives.
+  collectives.
 
 Public API (superset of the reference's ``encode, decode, compress,
 decompress``, /root/reference/tinyimgcodec/__init__.py:1-5):
 
 - ``compress(image, quality) -> bytes`` / ``decompress(bytes) -> image``:
-  one-call codec; uses the TPU pipeline when a TPU is available, the host
-  golden path otherwise.
+  one-call codec; runs the JAX pipeline on the default JAX device (the GPU
+  when there is one), or the host golden path with ``backend="host"``.
 - ``encode(image, quality) -> CodecArrays`` / ``decode(CodecArrays) ->
   image``: array-level API (self-consistent, unlike the reference --
   SURVEY quirk 2.5-4).

@@ -1,9 +1,10 @@
 """Top-level one-call codec API.
 
 ``compress``/``decompress`` mirror the reference's byte-level entry points
-(reference codec.py:133-189) but route through the TPU pipeline when
-available (``tinyimgcodec_tpu.engine``), falling back to the host golden
-path.  Selection can be forced with ``backend=``.
+(reference codec.py:133-189) but run the JAX pipeline
+(``tinyimgcodec_tpu.engine``) on the default JAX device.  The host golden
+path runs only with ``backend="host"``, or under ``backend="auto"`` when
+JAX itself cannot be imported.
 
 All knobs are validated through :class:`tinyimgcodec_tpu.config.CodecConfig`
 at this boundary (the reference silently NaNs at quality=100, SURVEY quirk
@@ -12,7 +13,7 @@ at this boundary (the reference silently NaNs at quality=100, SURVEY quirk
 
 from __future__ import annotations
 
-import warnings
+import importlib.util
 
 import numpy as np
 
@@ -20,44 +21,26 @@ from . import container
 from .config import CodecConfig
 
 _ENGINES: dict = {}
-_ENGINE_FAILED = False
-_ENGINE_ERROR: BaseException | None = None
 
 
 def _get_engine(precision: str = "exact"):
     """Lazily construct the JAX pipeline engine (imports jax on demand).
 
-    On failure the original exception is kept (re-raised for
-    ``backend="jax"``) and a RuntimeWarning is emitted once, so a TPU
-    misconfiguration degrades loudly instead of silently running the
-    ~1500x-slower host path.
+    Returns None only when ``jax`` is not installed; any other failure
+    to build the engine (a broken accelerator setup, say) raises, so it
+    never degrades into the ~1500x slower host path unnoticed.
     """
-    global _ENGINE_FAILED, _ENGINE_ERROR
-    if _ENGINE_FAILED:
-        return None
     if precision not in _ENGINES:
-        try:
-            from .engine import Engine
-
-            _ENGINES[precision] = Engine(precision)
-        except Exception as e:
-            _ENGINE_FAILED = True
-            _ENGINE_ERROR = e
-            warnings.warn(
-                "JAX codec engine unavailable; falling back to the slow "
-                f"host path ({type(e).__name__}: {e})",
-                RuntimeWarning,
-                stacklevel=3,
-            )
+        if importlib.util.find_spec("jax") is None:
             return None
+        from .engine import Engine
+
+        _ENGINES[precision] = Engine(precision)
     return _ENGINES[precision]
 
 
 def _engine_unavailable_error() -> RuntimeError:
-    err = RuntimeError("JAX engine unavailable (backend='jax' requested)")
-    if _ENGINE_ERROR is not None:
-        err.__cause__ = _ENGINE_ERROR
-    return err
+    return RuntimeError("backend='jax' requested but jax is not installed")
 
 
 def compress(
@@ -72,7 +55,7 @@ def compress(
 ) -> bytes:
     """Grayscale image (H, W) -> compressed bytes.
 
-    backend: "auto" (TPU/JAX when available), "jax", or "host".
+    backend: "auto" (JAX when installed), "jax", or "host".
     precision: "exact" (byte-identical to the float64 reference) or
     "fast" (f32 transform; rare rounding ties may differ).
     block_index: append the TICX block-offset trailer so decoders can
@@ -124,13 +107,10 @@ def compress_batch(
     """(B, H, W) same-shaped grayscale images -> list of compressed bytes.
 
     The batch entry point of the public API: one device dispatch for the
-    whole batch through the fused Pallas pipeline (the flagship
-    throughput path).  ``images`` may be a numpy array or an
-    already-on-device ``jax.Array`` (e.g. from ``jax.device_put``) --
-    the latter skips the host->device transfer.  Shapes the kernels
-    cannot tile fall back to the XLA batch pipeline, then to the host
-    path; every fallback preserves the same bytes contract
-    (precision="exact" is byte-identical to the float64 reference).
+    whole batch through the XLA batch pipeline
+    (:func:`tinyimgcodec_tpu.parallel.batch.compress_batch` over every
+    local device).  ``images`` may be a numpy array or a ``jax.Array``.
+    precision="exact" is byte-identical to the float64 reference.
     """
     config = CodecConfig(
         quality=quality, precision=precision, block_index=block_index,
@@ -139,44 +119,6 @@ def compress_batch(
     if backend not in ("auto", "jax", "host"):
         raise ValueError(f"unknown backend {backend!r}")
     if backend != "host" and _get_engine(config.precision) is not None:
-        from .pallas_pipeline import compress_batch_pallas
-
-        engine = _get_engine(config.precision)
-        staged = None
-        if not isinstance(images, np.ndarray) and hasattr(
-            images, "devices"
-        ):  # jax.Array already on device (must be block-aligned)
-            staged = images
-            b, h, w = staged.shape
-            if h % 8 or w % 8:
-                raise ValueError(
-                    "staged device batches must be block-aligned "
-                    f"(got {h}x{w}); pad with "
-                    "tinyimgcodec_tpu.ops.transform.pad_to_blocks or "
-                    "pass a numpy array"
-                )
-        else:
-            b, h, w = np.asarray(images).shape
-        try:
-            # same whole-stream-VMEM-residency cap as the single-image
-            # engine routing (Engine._PALLAS_MAX_PIXELS applies to the
-            # batch total here: the placement kernel keeps the batch's
-            # whole output stream VMEM-resident)
-            if engine._use_pallas and (
-                b * h * w <= engine._PALLAS_MAX_PIXELS
-            ):
-                kw = dict(
-                    quality=config.quality, precision=config.precision,
-                    block_index=config.block_index,
-                    index_stride=config.index_stride,
-                    interpret=engine._pallas_interpret,
-                )
-                if staged is not None:
-                    return compress_batch_pallas(None, staged=staged, **kw)
-                return compress_batch_pallas(np.asarray(images), **kw)
-        except ValueError as e:
-            if "not tileable" not in str(e):
-                raise
         from .parallel.batch import compress_batch as xla_batch
 
         return xla_batch(
@@ -214,12 +156,12 @@ def decompress_batch(
 ):
     """Compressed streams -> decoded uint8 images.
 
-    The batch decode entry point: on TPU backends, TICX-indexed
-    batches (standard tables, or uniform standard-range dynamic
-    tables) entropy-decode fully ON DEVICE
-    (chunk-parallel, ops/entropy_decode.py); otherwise entropy decode
-    runs thread-parallel through the native C LUT decoder and ONE
-    batched device program runs the transform half.  Uniform batches
+    The batch decode entry point: off the CPU, TICX-indexed batches
+    (standard tables, or uniform standard-range dynamic tables)
+    entropy-decode fully ON DEVICE (chunk-parallel,
+    ops/entropy_decode.py); otherwise entropy decode runs
+    thread-parallel through the native C LUT decoder and ONE batched
+    device program runs the transform half.  Uniform batches
     return a stacked ``(B, H, W)`` array; mixed shapes/qualities are
     grouped into uniform runs and a list of (H, W) arrays comes back
     in input order.

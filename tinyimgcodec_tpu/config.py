@@ -32,7 +32,6 @@ class CodecConfig:
     assemble: str = "host"      # "host" (byte-conformant) | "device"
     bits_per_pixel_budget: float = 6.0  # device-assembly buffer sizing
     mesh_devices: int | None = None     # None = all local devices
-    tile_blocks: int = 512      # pallas kernel tile size
 
     def __post_init__(self):
         if not 1 <= self.quality <= 99:

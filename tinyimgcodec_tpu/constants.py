@@ -1,4 +1,4 @@
-"""Static tables for the TPU-native grayscale JPEG-style codec.
+"""Static tables for the device-parallel grayscale JPEG-style codec.
 
 All tables here are standard JPEG (ITU-T T.81 Annex K) constants, stored in
 *gather-friendly numeric layouts* so device kernels can look codes up with a

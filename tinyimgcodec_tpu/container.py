@@ -16,7 +16,7 @@ Wire format (reference-compatible where the reference is self-consistent):
   codes + magnitude bits, terminated by EOB -- big-endian bit packing,
   zero-padded to a byte boundary.
 
-This module is the host/golden path; the TPU pipeline produces identical
+This module is the host/golden path; the device pipeline produces identical
 bytes (tested) with the entropy stage running on device.
 """
 

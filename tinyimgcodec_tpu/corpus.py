@@ -37,6 +37,27 @@ def synthetic_corpus(n: int = 49, size: int = 512) -> np.ndarray:
     return out
 
 
+# The in-repo golden image's oracle numbers at quality 50, measured with
+# the host float64 path (``container.compress``, no TICX trailer).
+GOLDEN_Q50_BYTES = 21982
+GOLDEN_Q50_PSNR = 32.345
+
+
+def golden_image(size: int = 512, seed: int = 7) -> np.ndarray:
+    """Seeded 512x512 grayscale stand-in for Lenna: smooth gradients, a
+    checker texture with hard edges, and sensor-like noise."""
+    rng = np.random.RandomState(seed)
+    y, x = np.mgrid[0:size, 0:size]
+    img = (
+        96.0
+        + 60.0 * np.sin(2 * np.pi * x / (size / 3.0))
+        * np.cos(2 * np.pi * y / (size / 2.0))
+        + 40.0 * ((x // 37 + y // 29) % 2)
+        + rng.randn(size, size) * 6.0
+    )
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
 def corpus_available() -> bool:
     return os.path.isdir(REFERENCE_DATA)
 

@@ -1,6 +1,6 @@
 """Trusted host (numpy/scipy float64) implementation of the codec math.
 
-This module is the *normative semantics oracle* for the TPU pipeline: every
+This module is the *normative semantics oracle* for the device pipeline: every
 device kernel is tested against it, and it is itself pinned to the reference
 implementation's verified behavior (SURVEY.md 2.5) by golden-vector tests:
 

@@ -7,8 +7,8 @@ job skips completed items and picks up where it left off after a crash or
 preemption (the multi-host analog restarts the failed batch only).
 Streaming output: each image's bitstream lands in its own file as soon as
 it is encoded, so consumers see valid prefixes of the corpus while the
-job runs (the TPU-era analog of the reference C encoder's incremental
-FIFO drain, c/encode.c:59).
+job runs (the analog of the reference C encoder's incremental FIFO
+drain, c/encode.c:59).
 """
 
 from __future__ import annotations
@@ -37,7 +37,6 @@ class CorpusEncodeJob:
         self.manifest_path = os.path.join(out_dir, "manifest.json")
         os.makedirs(out_dir, exist_ok=True)
         self._manifest = self._load_manifest()
-        self._mesh = None
 
     def _load_manifest(self) -> dict:
         if os.path.exists(self.manifest_path):
@@ -59,39 +58,15 @@ class CorpusEncodeJob:
         done = self._manifest["done"]
         return [n for n in names if n not in done]
 
-    def _encode_batch(self, batch: list[np.ndarray]) -> list[bytes] | None:
-        """Encode a same-shaped batch through the data-parallel pipeline
-        (one SPMD dispatch instead of per-image syncs); None = use the
-        per-image fallback.
+    def _encode_batch(self, batch: list[np.ndarray]) -> list[bytes]:
+        """Encode a same-shaped batch through the public batch API: one
+        SPMD dispatch over every local device instead of per-image
+        syncs (the host oracle under backend="host").  Errors raise."""
+        from . import api
 
-        Single-device: the public batch API (fused pallas kernels on
-        TPU).  Multi-device mesh: the sharded XLA pipeline."""
-        if self.backend == "host":
-            return None
-        try:
-            from .parallel import make_mesh
-
-            if self._mesh is None:
-                self._mesh = make_mesh()
-            if self._mesh.devices.size == 1:
-                from . import api
-
-                return api.compress_batch(
-                    np.stack(batch), quality=self.quality,
-                    backend=self.backend,
-                )
-            from .parallel.batch import compress_batch
-
-            # block_index=True matches the public API's default-on
-            # trailer so sharded and single-device job outputs agree
-            return compress_batch(
-                np.stack(batch), quality=self.quality, mesh=self._mesh,
-                block_index=True,
-            )
-        except Exception:
-            if self.backend == "jax":
-                raise
-            return None
+        return api.compress_batch(
+            np.stack(batch), quality=self.quality, backend=self.backend,
+        )
 
     def run(
         self, images: dict[str, np.ndarray], progress=None
@@ -103,8 +78,6 @@ class CorpusEncodeJob:
         single-image dispatch latency); checkpointing stays per-image, so
         resume granularity is unchanged.
         """
-        from . import api
-
         names = self.pending(sorted(images))
         out_paths = {
             n: os.path.join(self.out_dir, f"{n}.img")
@@ -128,14 +101,6 @@ class CorpusEncodeJob:
         done_count = 0
         for chunk in chunks:
             streams = self._encode_batch([images[n] for n in chunk])
-            if streams is None:
-                streams = [
-                    api.compress(
-                        images[n], quality=self.quality,
-                        backend=self.backend,
-                    )
-                    for n in chunk
-                ]
             for name, data in zip(chunk, streams):
                 tmp = out_paths[name] + ".tmp"
                 with open(tmp, "wb") as f:

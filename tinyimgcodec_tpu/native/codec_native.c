@@ -1,6 +1,6 @@
 /* Native host runtime for tinyimgcodec_tpu.
  *
- * TPU-native counterpart of the reference's embedded C components
+ * Host-side counterpart of the reference's embedded C components
  * (reference c/img.c, c/fifo.c): the device does the parallel math; this
  * module covers the inherently-serial host work at memory speed:
  *

@@ -1,1 +1,1 @@
-"""Device (JAX/XLA/Pallas) compute ops for the codec pipeline."""
+"""Device (JAX/XLA) compute ops for the codec pipeline."""

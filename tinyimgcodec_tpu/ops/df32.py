@@ -1,11 +1,12 @@
-"""Double-float (float32 pair) arithmetic for bit-exact TPU transforms.
+"""Double-float (float32 pair) arithmetic for bit-exact device transforms.
 
-TPUs have no float64 units, but the reference's semantics are defined in
-float64 (scipy DCT/IDCT + numpy rounding, reference utils.py:32-53).  To
-reproduce them *bit-exactly* on device we carry values as an unevaluated
-sum ``hi + lo`` of two float32s (~49 mantissa bits), using error-free
+The reference's semantics are defined in float64 (scipy DCT/IDCT + numpy
+rounding, reference utils.py:32-53).  To reproduce them *bit-exactly* in
+float32 device arithmetic we carry values as an unevaluated sum
+``hi + lo`` of two float32s (~49 mantissa bits), using error-free
 transformations (Knuth two-sum, Dekker split two-product -- no FMA
-dependence, so results are stable under XLA's strict FP semantics).
+dependence; optimization barriers pin the intermediates XLA could
+otherwise rewrite).
 
 Accuracy: relative error ~1e-14 per op chain here, far below the ~1e-13
 algorithmic error of scipy's own FFT-based float64 DCT, so rounding-tie
@@ -27,29 +28,6 @@ _SNAP = 1e-9
 _SPLIT_FACTOR = np.float32(4097.0)  # 2**12 + 1 (Dekker split for f32)
 
 
-_BARRIERS = True
-
-
-class barrier_free:
-    """Disable optimization barriers while tracing a Mosaic kernel body.
-
-    Mosaic cannot lower ``optimization_barrier`` — and does not need it:
-    it lowers the jaxpr directly to MLIR vector/arith ops with strict
-    IEEE semantics (no algebraic reassociation, no FMA contraction), so
-    the error-free transforms survive without pinning.  XLA-compiled
-    paths (including Pallas interpret mode) keep the barriers.
-    """
-
-    def __enter__(self):
-        global _BARRIERS
-        self._saved = _BARRIERS
-        _BARRIERS = False
-
-    def __exit__(self, *exc):
-        global _BARRIERS
-        _BARRIERS = self._saved
-
-
 def _opaque(x):
     """Shield an intermediate from algebraic simplification.
 
@@ -59,8 +37,6 @@ def _opaque(x):
     compiled loop bodies, silently destroying the error terms.  An
     optimization barrier pins the value.
     """
-    if not _BARRIERS:
-        return x
     import jax
 
     return jax.lax.optimization_barrier(x)

@@ -19,8 +19,8 @@ device:
    disjoint bits, so integer adds implement the OR without conflicts.
 3. **Stream stitching** (:func:`stitch_words`): an exclusive scan over
    block bit lengths gives global offsets; each output word *gathers* the
-   (<= 7) blocks that overlap it -- a gather, not a scatter, because TPU
-   loves the former and serializes the latter.
+   (<= 7) blocks that overlap it -- a gather, so no two writers ever
+   touch one output word.
 
 Capacity bounds are static: 52 words = 1664 bits per block covers the
 worst legal block (63 AC coefficients at 26 bits + 20 DC bits + EOB).
@@ -317,9 +317,10 @@ def stitch_words(words, block_bits, out_words: int, max_overlap: int = 7):
     32-bit output word (7 for 8x8 blocks whose min payload is 6 bits; 2
     when rows are large shard segments).
 
-    Gather-based rather than scatter-based -- each output word *looks up*
-    the rows overlapping its 32 bits and ORs their aligned fragments --
-    because XLA:TPU vectorizes gathers but serializes scatters.
+    Gather-based rather than scatter-based: each output word *looks up*
+    the rows overlapping its 32 bits and ORs their aligned fragments, so
+    no two rows write one word (a design from an earlier target that
+    serialized scatters; a scatter or atomic-OR form is untested here).
 
     Returns (stream (out_words,) uint32, total_bits scalar).
     """

@@ -17,8 +17,7 @@ the accelerator, with no Huffman LUT and no per-symbol host work:
    packed PAIRED ``(mode, 16-bit window) -> (len, size, run, EOB,
    advance) x 2`` table (each row also carries the speculative decode
    of the FOLLOWING symbol when both codes share the window) -- 0.75
-   serialized gathers per symbol; the chain is gather-throughput-bound
-   (reports/perf_breakdown_r05.md).  Values, signs (JPEG
+   serialized gathers per symbol; the chain is gather-throughput-bound.  Values, signs (JPEG
    one's-complement, reference bitbuffer.py:61-65) and record packing
    happen in-register; _UNROLL steps write one record slab per
    ``lax.while_loop`` iteration, until every chunk has finished its
@@ -27,13 +26,14 @@ the accelerator, with no Huffman LUT and no per-symbol host work:
 2. **Record unpack** (fully parallel over all recorded slots, zero
    gathers): the chain already decoded value/run/kind/EOB into each
    record word; the buffer transposes to chunk-major so the segmented
-   scans below run on the lane-tiled last axis.
-3. **Reassembly** (parallel scans + MXU): per-chunk running block
+   scans below run on the contiguous last axis.
+3. **Reassembly** (parallel scans + one matmul): per-chunk running block
    counter (cumsum of DC slots) + intra-block zig-zag position via a
    reset-at-DC segmented cumsum (cummax trick), then -- for canonical
    layouts -- a batched one-hot bf16 matmul places every slot into the
    ``(nb_total, 64)`` coefficient tensor (values ride in two <=8-bit
-   pieces, exact on the MXU); arbitrary chunk subsets (resumes) use a
+   pieces, exact in a bf16 matmul with f32 accumulation); arbitrary
+   chunk subsets (resumes) use a
    sorted scatter instead.
 
 Validation is explicit: a chunk is ``ok`` only if it decoded exactly its
@@ -129,7 +129,7 @@ def canonical_tables(tables: dict):
       (huffman._canonical_codes) always emits them; foreign tables that
       are not canonical fall back to the host bit-cursor;
     * extended-range symbols (DC category > 11 / AC size > 10): value
-      reassembly carries coefficients in two <=8-bit MXU pieces
+      reassembly carries coefficients in two <=8-bit matmul pieces
       (|v| <= 2047) and the pair-window invariant assumes <= 27-bit
       symbols -- the same standard-range bound as the device ENCODER
       (huffman.HuffmanSpec.extended, engine.py:412-418).
@@ -303,7 +303,7 @@ def entropy_decode_chunks(
     prepare_batch's canonical layout (uniform images; chunk k holds the
     CONTIGUOUS ascending block range [base_k, base_k + blocks_k), full
     ``stride``-block chunks except each image's last, dead pad chunks
-    only at the end).  Enables the scatter-free MXU-matmul reassembly;
+    only at the end).  Enables the scatter-free matmul reassembly;
     pass None for arbitrary chunk subsets (the rerun path), which use
     a sorted XLA scatter instead.
 
@@ -350,13 +350,10 @@ def entropy_decode_chunks(
         -(-s_cap // (2 * _PAIRS * _UNROLL)) * (2 * _PAIRS * _UNROLL)
     )
 
-    # Chunk state lives as (8, ceil(C/8)) tiles: a 1-D (C,) int32 array
-    # occupies ~C/128 VPU tiles with one sublane used each, so every
-    # narrow chain op paid ~8x the tile work (the serial phase is
-    # dispatch/tile-bound, reports/perf_breakdown_r04.md).  Pad chunks
-    # to a sublane multiple with DEAD chunks (zero blocks decode
-    # nothing and validate ok: cursor stays at start == both end
-    # bounds).
+    # Chunk state lives as (8, ceil(C/8)) tiles (a layout kept from an
+    # earlier target whose vector tiles were 8 rows deep).  Pad chunks
+    # to a multiple of 8 with DEAD chunks (zero blocks decode nothing
+    # and validate ok: cursor stays at start == both end bounds).
     c8 = -(-c // 8) * 8
     crows, ccols = 8, c8 // 8
 
@@ -410,8 +407,8 @@ def entropy_decode_chunks(
         # word 1 -- whenever adv1 + len2 <= 16, the common case for
         # natural content).  One contiguous 2-int row gather then
         # serves BOTH symbols of a chain step: 2 serialized gathers
-        # per step instead of 3 (the chain is gather-throughput-bound,
-        # reports/perf_breakdown_r05.md).  A pair miss decodes only
+        # per step instead of 3 (the chain is gather-throughput-bound).
+        # A pair miss decodes only
         # symbol 1 that step (dead record row; the budget/rerun
         # machinery absorbs the rare inflation).  The worst-case rerun
         # pass (max_symbols None) keeps the miss-free two-gather chain
@@ -464,7 +461,7 @@ def entropy_decode_chunks(
     # The round-4 chain decoded ONE symbol per lockstep step (2 gathers
     # + ~14 narrow ops + 1 row write + the any(left) cond reduce) and
     # was bound by per-step dispatch/launch overhead, not data
-    # (reports/perf_breakdown_r04.md: ~770 steps, ~8 us/op).  This
+    # (~770 steps at ~8 us per op, measured on an earlier target).  This
     # round's chain cuts the per-symbol serialized work three ways:
     #  * PAIR DECODE: one 5-half-cell gather gives >=65 bits from the
     #    cursor; symbol 2's code window is extracted from the same
@@ -690,14 +687,14 @@ def entropy_decode_chunks(
         # so per chunk the (slot -> block-in-chunk x zigzag) placement
         # is OUT[c] = A[c].T @ B[c] with A the block one-hot and B the
         # value-weighted zigzag one-hot -- a batched (C, stride, S) x
-        # (C, S, 64) MXU matmul, then a reshape + slice assembles the
-        # (nb_total, 64) tensor.  The XLA scatter this replaces was
-        # 21.5 ms of the 25.6 ms post-chain cost on the corpus pass
-        # (reports/perf_breakdown_r05.md).  Exactness on the MXU: the
+        # (C, S, 64) matmul, then a reshape + slice assembles the
+        # (nb_total, 64) tensor (on an earlier target the XLA scatter
+        # it replaces was most of the post-chain cost).  Exactness: the
         # value rides in two <=8-bit pieces (lo in [0,127], hi in
-        # [-16,15], val = hi*128 + lo) because XLA:TPU computes bf16
-        # matmuls natively -- bf16 represents integers <=255 exactly
-        # and the f32 accumulation of <=S terms stays < 2^24.
+        # [-16,15], val = hi*128 + lo) because the operands are bf16 --
+        # bf16 represents integers <=255 exactly and the f32
+        # accumulation of <=S terms stays < 2^24.  Checked on the GPU
+        # by pixel identity with the host decoder (chip_smoke.py).
         images, nb_image = layout
         n_c = -(-nb_image // int(stride))
         s_axis = s_cap

@@ -1,10 +1,10 @@
 """Device transform stage: blockify -> DCT -> quantize -> zigzag -> DPCM.
 
-TPU-first design (vs the reference's scipy calls + numpy loops,
+Device-first design (vs the reference's scipy calls + numpy loops,
 utils.py:13-53, codec.py:26-70):
 
 - the 2-D DCT/IDCT are batched 8x8 matrix products against the orthonormal
-  DCT-II basis, over an HBM-resident ``(num_blocks, 8, 8)`` tensor;
+  DCT-II basis, over a device-resident ``(num_blocks, 8, 8)`` tensor;
 - two precision modes: ``"fast"`` (plain float32) and ``"exact"``
   (double-float arithmetic, :mod:`.df32`) whose quantized coefficients and
   decoded pixels match the float64 reference bit-for-bit;
@@ -32,6 +32,8 @@ from . import df32
 
 FAST = "fast"
 EXACT = "exact"
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 @functools.cache
@@ -68,25 +70,6 @@ def blockify(image: jnp.ndarray) -> jnp.ndarray:
     return x.reshape(*lead, (h // 8) * (w // 8), 8, 8)
 
 
-def blockify_u32(images: jnp.ndarray) -> jnp.ndarray:
-    """(..., H, W) uint8 -> (N, 16) uint32 word-packed blocks.
-
-    Same raster block order as :func:`blockify`, but the transpose
-    moves little-endian 4-byte words instead of single bytes -- 8x
-    coarser HBM access, measurably cheaper on TPU.  Block b's word k
-    holds pixels 4k..4k+3 of the row-major 8x8 block (LE byte order);
-    the pallas encode kernel (from_u32 mode) unpacks lanes in VMEM.
-    """
-    import jax
-
-    *lead, h, w = images.shape
-    x = images.reshape(*lead, h, w // 4, 4)
-    x32 = jax.lax.bitcast_convert_type(x, jnp.uint32)  # (..., h, w/4)
-    x32 = x32.reshape(*lead, h // 8, 8, w // 8, 2)
-    x32 = jnp.swapaxes(x32, -3, -2)
-    return x32.reshape(-1, 16)
-
-
 def unblockify(blocks: jnp.ndarray, h: int, w: int) -> jnp.ndarray:
     *lead, _, _, _ = blocks.shape
     x = blocks.reshape(*lead, h // 8, w // 8, 8, 8)
@@ -94,27 +77,11 @@ def unblockify(blocks: jnp.ndarray, h: int, w: int) -> jnp.ndarray:
     return x.reshape(*lead, h, w)
 
 
-def _dct2_fast(blocks: jnp.ndarray) -> jnp.ndarray:
-    d = jnp.asarray(dct_basis(), dtype=jnp.float32)
-    y = jnp.einsum("ui,...ij->...uj", d, blocks,
-                   preferred_element_type=jnp.float32)
-    return jnp.einsum("...uj,vj->...uv", y, d,
-                      preferred_element_type=jnp.float32)
-
-
-def _idct2_fast(coeffs: jnp.ndarray) -> jnp.ndarray:
-    d = jnp.asarray(dct_basis(), dtype=jnp.float32)
-    y = jnp.einsum("iu,...uv->...iv", d.T, coeffs,
-                   preferred_element_type=jnp.float32)
-    return jnp.einsum("...iv,vj->...ij", y, d,
-                      preferred_element_type=jnp.float32)
-
-
 @functools.cache
 def _fast_encode_matrix(quality: int) -> tuple[np.ndarray, np.ndarray]:
     """Fused (64, 64) matrix: pixels -> quantized zig-zag coefficients.
 
-    One MXU-shaped matmul does DCT + 1/divisor scaling + zig-zag: column
+    One matmul does DCT + 1/divisor scaling + zig-zag: column
     k is the zig-zag-k DCT basis vector over the 64 pixel positions,
     pre-divided by its quantization divisor.  The level shift folds into
     a per-column offset (only the DC column has a nonzero basis sum).
@@ -144,32 +111,18 @@ def _fast_decode_matrix(quality: int, scaled_dct: bool) -> np.ndarray:
 def _df_contract(get_term, n: int = 8):
     """Sum n double-float terms: get_term(k) -> (th, tl) df arrays.
 
-    Backend-dependent shape of the same math:
-
-    - TPU: a ``fori_loop`` keeps the HLO graph one term wide (the fully
-      unrolled form compiles for minutes); Mosaic/TPU preserves strict
-      IEEE semantics inside loop bodies (verified).
-    - CPU: **unrolled**.  XLA:CPU compiles loop bodies with FP
-      contraction that destroys the error-free transforms (verified: the
-      two_prod error term comes back zero inside a loop body, even
-      through optimization barriers) while straight-line code is exact.
+    Unrolled straight-line code on every backend.  XLA may contract
+    multiply-add into FMA inside loop bodies, which destroys the
+    error-free transforms (on the CPU the two_prod error term comes
+    back zero inside a ``fori_loop`` body, even through optimization
+    barriers); the unrolled form is byte-exact against the float64
+    oracle on the CPU and on the GPU.
     """
-    import jax as _jax
-
-    if _jax.default_backend() == "cpu":
-        acc_h, acc_l = get_term(0)
-        for k in range(1, n):
-            th, tl = get_term(k)
-            acc_h, acc_l = df32.df_add(acc_h, acc_l, th, tl)
-        return acc_h, acc_l
-
-    init = get_term(0)
-
-    def body(k, acc):
+    acc_h, acc_l = get_term(0)
+    for k in range(1, n):
         th, tl = get_term(k)
-        return df32.df_add(acc[0], acc[1], th, tl)
-
-    return jax.lax.fori_loop(1, n, body, init)
+        acc_h, acc_l = df32.df_add(acc_h, acc_l, th, tl)
+    return acc_h, acc_l
 
 
 def _dct2_df(blocks_f32: jnp.ndarray):
@@ -245,10 +198,13 @@ def encode_blocks(
     arithmetic to certify against the float64 reference (host fixup).
     """
     if precision == FAST:
-        # fused single matmul: DCT + quant scaling + zigzag (MXU-shaped)
+        # fused single matmul: DCT + quant scaling + zigzag.  Precision
+        # is pinned: on an H100 a default-precision f32 dot runs in TF32
+        # (10 mantissa bits), which moves quantized coefficients.
         m, offset = _fast_encode_matrix(quality)
         x = blocks.astype(jnp.float32).reshape(*blocks.shape[:-2], 64)
-        q = jnp.round(x @ jnp.asarray(m) - jnp.asarray(offset))
+        y = jnp.matmul(x, jnp.asarray(m), precision=_HIGHEST)
+        q = jnp.round(y - jnp.asarray(offset))
         zz = q.astype(jnp.int32)
         flags = jnp.zeros(blocks.shape[:-2], dtype=bool)
         if with_flags:
@@ -306,7 +262,9 @@ def decode_blocks(
     when with_flags=True; see encode_blocks)."""
     if precision == FAST:
         m = _fast_decode_matrix(quality, scaled_dct)
-        x = zz.astype(jnp.float32) @ jnp.asarray(m)
+        x = jnp.matmul(
+            zz.astype(jnp.float32), jnp.asarray(m), precision=_HIGHEST
+        )
         pix = jnp.floor(jnp.clip(x + 128.0, 0.0, 255.0))
         pix = pix.reshape(*zz.shape[:-1], 8, 8)
         flags = jnp.zeros(zz.shape[:-1], dtype=bool)

@@ -11,8 +11,9 @@ def make_mesh(n_devices: int | None = None, axis: str = "batch") -> Mesh:
     """1-D mesh over the first ``n_devices`` devices (default: all).
 
     Codec workloads shard along a single axis -- images (data parallel)
-    or block-tiles of one large image (spatial parallel) -- so a 1-D mesh
-    maps directly onto an ICI ring/line.
+    or block-tiles of one large image (spatial parallel).  The GPUs of
+    one host are joined all to all by NVLink, so device order along the
+    axis does not matter.
     """
     devices = jax.devices()
     if n_devices is not None:
@@ -31,9 +32,9 @@ def init_distributed(
 ) -> None:
     """Multi-host bring-up (no-op on single host).
 
-    Thin wrapper over ``jax.distributed.initialize``: on TPU pods the
-    runtime autodetects everything from the environment; arguments are
-    for explicit GPU/CPU multi-process setups.
+    Thin wrapper over ``jax.distributed.initialize``.  Pass all three
+    arguments (``coordinator`` as ``host:port``): nothing autodetects a
+    cluster on a plain GPU or CPU host.
     """
     if num_processes is not None and num_processes <= 1:
         return

@@ -1,10 +1,10 @@
-"""Streaming ingest: double-buffered host->HBM encode feed.
+"""Streaming ingest: double-buffered host->device encode feed.
 
 The reference's C encoder streams 8-pixel-row bands through a FIFO so
 output appears while input is still being read (c/encode.c:47-59).  The
-TPU-native analog works at chunk-of-images granularity: while the device
-encodes chunk i, chunk i+1 is already transferring host->HBM, so the
-link and the chip stay busy at the same time.  JAX dispatch is async --
+device analog works at chunk-of-images granularity: while the device
+encodes chunk i, chunk i+1 is already transferring host->device, so the
+link and the device stay busy at the same time.  JAX dispatch is async --
 ``jax.device_put`` returns immediately and the blocking pull of chunk
 i's compressed bytes is exactly the window chunk i+1's transfer hides
 behind.
@@ -23,11 +23,10 @@ from ..ops import transform
 
 
 def _chunked(images: Iterable[np.ndarray], n: int):
-    """Yield (padded-image list, true (H, W)) chunks.
-
-    Images are reflect-padded to block multiples for the kernels, but
-    their TRUE dimensions ride along so the stream headers preserve the
-    reference's crop contract (codec.py:69, utils.py:56-61)."""
+    """Yield lists of up to ``n`` same-shaped uint8 images.  They stay
+    unpadded: the batch pipeline reflect-pads them to block multiples
+    and records their TRUE dimensions in the headers (the reference's
+    crop contract, codec.py:69, utils.py:56-61)."""
     buf: list[np.ndarray] = []
     shape: tuple[int, int] | None = None
     for im in images:
@@ -39,14 +38,12 @@ def _chunked(images: Iterable[np.ndarray], n: int):
                 f"stream images must share one shape: {im.shape} "
                 f"vs {shape}"
             )
-        if im.shape[0] % 8 or im.shape[1] % 8:
-            im = transform.pad_to_blocks(im)
         buf.append(im)
         if len(buf) == n:
-            yield buf, shape
+            yield buf
             buf = []
     if buf:
-        yield buf, shape
+        yield buf
 
 
 def compress_stream(
@@ -54,66 +51,48 @@ def compress_stream(
     quality: int = 50,
     chunk: int = 8,
     precision: str = transform.FAST,
-    bt: int = 1024,
-    interpret: bool = False,
     block_index: bool = True,
     index_stride: int = 64,
 ) -> Iterator[bytes]:
     """Encode an image stream, yielding compressed bytes per image.
 
-    Keeps two chunks in flight (double buffering): the host->HBM
+    Keeps two chunks in flight (double buffering): the host->device
     transfer of the next chunk overlaps the device encode + result pull
-    of the current one.  Images must share one (H, W); the trailing
-    partial chunk is padded with repeats of its last image so every
-    dispatch reuses the same compiled program, and the pads are never
-    yielded.
+    of the current one.  Each chunk runs the batch pipeline
+    (:func:`parallel.batch.compress_batch`), so exact precision is
+    byte-identical to the float64 oracle.  Images must share one
+    (H, W); the trailing partial chunk is padded with repeats of its
+    last image so every dispatch reuses the same compiled program, and
+    the pads are never yielded.
 
     block_index (default on, like the other compress entries) appends
     the TICX trailer so streamed output feeds the chunk-parallel device
     decoder; reference decoders ignore it (docs/FORMAT.md).
     """
-    import jax
+    from .batch import compress_batch, stage_images
+    from .mesh import make_mesh
 
-    from ..pallas_pipeline import compress_batch_pallas
+    mesh = make_mesh()
 
-    def encode(staged, count: int, true_shape) -> list[bytes]:
-        try:
-            out = compress_batch_pallas(
-                None, quality=quality, staged=staged,
-                precision=precision, bt=bt, interpret=interpret,
-                true_shape=true_shape, block_index=block_index,
-                index_stride=index_stride,
-            )
-        except ValueError as e:
-            if "not tileable" not in str(e):
-                raise
-            # chunk shape the compiled kernels cannot tile (e.g. small
-            # images, Mosaic's 128-lane block rule): the XLA batch
-            # pipeline, which honors the requested precision (the same
-            # fallback api.compress_batch uses -- a host-oracle fallback
-            # here would silently switch fast-precision streams to
-            # host-exact bytes).  Crop back to the true dims first; the
-            # pipeline re-applies the identical reflect padding.
-            from .batch import compress_batch
-
-            th, tw = true_shape
-            host = np.asarray(staged)[:, :th, :tw]
-            out = compress_batch(
-                host, quality, precision=precision,
-                block_index=block_index, index_stride=index_stride,
-            )
+    def encode(batch: np.ndarray, staged, count: int) -> list[bytes]:
+        out = compress_batch(
+            batch, quality, mesh=mesh, precision=precision,
+            staged=staged, block_index=block_index,
+            index_stride=index_stride,
+        )
         return out[:count]
 
-    prev: tuple[object, int, tuple[int, int]] | None = None
-    for batch, true_shape in _chunked(images, chunk):
+    prev = None
+    for batch in _chunked(images, chunk):
         count = len(batch)
         if count < chunk:
             batch = batch + [batch[-1]] * (chunk - count)
-        staged = jax.device_put(np.stack(batch))  # async transfer
+        batch = np.stack(batch)
+        staged = stage_images(batch, mesh)  # async transfer
         if prev is not None:
             # device encodes the previous chunk while this transfer runs
             yield from encode(*prev)
-        prev = (staged, count, true_shape)
+        prev = (batch, staged, count)
     if prev is not None:
         yield from encode(*prev)
 
@@ -128,8 +107,8 @@ def decompress_stream(
     The decode dual of :func:`compress_stream` (the reference's C
     encoder streams row bands, c/encode.c:47-59; nothing streams on its
     decode side).  Streams are decoded in same-shaped chunks through
-    ``Engine.decompress_batch`` -- on TPU backends TICX-indexed chunks
-    run the chunk-parallel device entropy decoder -- and JAX's async
+    ``Engine.decompress_batch`` -- off the CPU, TICX-indexed chunks run
+    the chunk-parallel device entropy decoder -- and JAX's async
     dispatch overlaps chunk i+1's upload with chunk i's pull.  Shapes
     may vary across the stream: a shape change flushes the current
     chunk (each chunk must be uniform).
